@@ -31,15 +31,15 @@ against the multiplicity-corrected max-arc threshold — must be detected
 essentially always: calibration without power would be vacuous (a test
 that never rejects is perfectly conservative).
 
-Run on the TPU (the production backend; the host fallback path is
+Run on the GPU (the production backend; the host fallback path is
 exercised by the committed pytest pinning test instead):
 
     python dev/cbs_calibration.py            # full study -> markdown
     python dev/cbs_calibration.py --pilot    # 1 cell, small R
 
-Reference anchors: DNAcopy's segment() with weights as driven by
-/root/reference/src/wisecondorx/include/CBS.R:70-127; alpha default
-1e-4 from /root/reference/src/wisecondorx/main.py:421-427.
+Reference anchors: DNAcopy's segment() with weights as driven by the
+reference's src/wisecondorx/include/CBS.R:70-127; alpha default 1e-4
+from its src/wisecondorx/main.py:421-427.
 """
 
 from __future__ import annotations
@@ -55,8 +55,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(
     0, os.path.join(os.path.dirname(__file__), "..", "tests")
 )
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
 
 from statutil import wilson_ci  # noqa: E402 (path insert above)
 
@@ -134,6 +132,9 @@ def main():
 
     import jax
 
+    from wisecondorx_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
     backend = jax.default_backend()
     print(f"backend: {backend}", file=sys.stderr)
 

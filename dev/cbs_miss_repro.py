@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Focused reproduction of the calibration MISS cell
 (n=2048, alpha=0.01, skewed 3-decade weights): is the elevated realized
-level (a) seed-stable, (b) TPU-f32-specific (the CPU x64 host loop is
+level (a) seed-stable, (b) device-f32-specific (the CPU x64 host loop is
 the f64 control), (c) dependent on the exact-family bucket boundary?
 
 Usage:  python dev/cbs_miss_repro.py [--cpu] [--n 2048] [--seeds 3]
@@ -17,7 +17,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
 
 
 def main():
@@ -44,6 +43,9 @@ def main():
             pass
     if args.x64:
         jax.config.update("jax_enable_x64", True)
+    from wisecondorx_tpu.utils.device import setup_compile_cache
+
+    setup_compile_cache()
 
     from wisecondorx_tpu.ops.cbs import CBSConfig, _segment_jobs
 

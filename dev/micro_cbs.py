@@ -1,18 +1,16 @@
-"""Micro-benchmark the CBS round's constituent ops on the real TPU."""
+"""Micro-benchmark the CBS round's constituent ops on the device."""
 
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from wisecondorx_tpu.ops import cbs as cbs_ops  # noqa: E402
-from wisecondorx_tpu.utils.device import warm_readback_channel  # noqa: E402
+from wisecondorx_tpu.utils.device import setup_compile_cache  # noqa: E402
 
 
 def bench(name, fn, *args, reps=3):
@@ -26,7 +24,7 @@ def bench(name, fn, *args, reps=3):
 
 
 def main():
-    warm_readback_channel().wait(timeout=900)
+    setup_compile_cache()
     for n_pad, B in ((16384, 4096), (2048, 16384)):
         print(f"--- n_pad={n_pad} B={B}", file=sys.stderr, flush=True)
         S = 32

@@ -1,4 +1,4 @@
-"""Profile full-genome CBS on the real TPU (scratch, not shipped).
+"""Profile full-genome CBS on the device (scratch, not shipped).
 
 Counts dispatches and aggregates wall time per kernel family to decide
 where the round-3 batching work should go.
@@ -9,20 +9,19 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp")
-
 import numpy as np
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main():
     import jax
 
     from wisecondorx_tpu.ops import cbs as cbs_ops
-    from wisecondorx_tpu.utils.device import warm_readback_channel
-    from wisecondorx_tpu.utils.warmup import start_cbs_warmup
+    from wisecondorx_tpu.utils.device import setup_compile_cache
 
+    setup_compile_cache()
     print("backend:", jax.default_backend(), file=sys.stderr)
-    warm_done = warm_readback_channel()
 
     binsize = 15000
     chr_mbp = np.array(
@@ -44,12 +43,6 @@ def main():
         r[bl] = 0.0
         results_r.append(r)
         results_w.append(np.abs(rng.normal(1.0, 0.1, n)))
-
-    t0 = time.perf_counter()
-    warm = start_cbs_warmup(int(nbins.max()))
-    warm.wait(timeout=1800)
-    print(f"cbs warm: {time.perf_counter() - t0:.1f}s", file=sys.stderr)
-    warm_done.wait(timeout=900)
 
     # instrument
     stats = collections.defaultdict(lambda: [0, 0.0])

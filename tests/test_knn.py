@@ -178,3 +178,86 @@ def test_null_ratios_jax_backend_matches_numpy(prepped):
     a = knn_ops.compute_null_ratios(corrected, idx, ids, backend="numpy")
     b = knn_ops.compute_null_ratios(corrected, idx, ids, backend="jax")
     np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_xla_partial_merge_matches_sort():
+    """The "partial" (approx_max_k) merge must equal "sort" on tie-free
+    data."""
+    from knn_oracle import layout
+
+    rng = np.random.default_rng(11)
+    bins_per_chr = [300, 250, 200]
+    starts, chr_of_bin = layout(bins_per_chr)
+    n = int(sum(bins_per_chr))
+    data = rng.lognormal(0, 0.02, size=(n, 24))
+
+    idx_s, dist_s = knn_ops.knn_search(
+        data, chr_of_bin, starts, bins_per_chr, ref_size=25, col_tile=128,
+    )
+    idx_m, dist_m = knn_ops.knn_search(
+        data, chr_of_bin, starts, bins_per_chr, ref_size=25,
+        col_tile=128, merge_method="partial",
+    )
+    np.testing.assert_allclose(
+        np.sort(dist_m, axis=1), np.sort(dist_s, axis=1), rtol=1e-12
+    )
+    for r in range(n):
+        assert set(idx_m[r]) == set(idx_s[r])
+
+
+def test_knn_matches_brute_force_oracle(prepped):
+    """The float64 search equals the independent brute-force oracle:
+    identical neighbour order (bisect tie order) and distances."""
+    from knn_oracle import brute_force_knn
+
+    corrected, ml = prepped
+    idx_o, dist_o = brute_force_knn(
+        corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+        ml.masked_bins_per_chr, 30,
+    )
+    idx, dist = knn_ops.knn_search(
+        corrected, ml.chr_of_masked_bin, ml.masked_chr_starts,
+        ml.masked_bins_per_chr, ref_size=30, col_tile=128, row_tile=100,
+    )
+    np.testing.assert_array_equal(idx, idx_o)
+    np.testing.assert_allclose(dist, dist_o, rtol=1e-9, atol=1e-15)
+
+
+def test_null_ratios_device_matches_host():
+    """The all-device null-ratio driver must reproduce the host table,
+    including the -1 wraparound quirk and gonosomal placeholder rows."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(17)
+    n, s, k = 700, 12, 9
+    data = rng.lognormal(0, 0.1, size=(n, s))
+    idx = rng.integers(0, n, size=(n, k)).astype(np.int32)
+    idx[3, :4] = -1  # sentinel slots -> numpy wraparound parity
+    chosen = np.array([0, 2, 5, 7])
+
+    host = knn_ops.compute_null_ratios(data, idx, chosen, backend="numpy")
+    dev = knn_ops.compute_null_ratios_device(
+        jnp.asarray(data), jnp.asarray(idx), chosen
+    )
+    np.testing.assert_allclose(dev, host, rtol=1e-12)
+
+    # Gonosomal shape: placeholder zero-index rows prepended on device.
+    r0 = 300
+    idx_g = idx.copy()
+    idx_g[:r0] = 0
+    host_g = knn_ops.compute_null_ratios(
+        data, idx_g, chosen, backend="numpy"
+    )
+    dev_g = knn_ops.compute_null_ratios_device(
+        jnp.asarray(data), jnp.asarray(idx[r0:]), chosen,
+        placeholder_rows=r0,
+    )
+    np.testing.assert_allclose(dev_g, host_g, rtol=1e-12)
+    # Unfetched chunks assemble to the same table.
+    parts = knn_ops.compute_null_ratios_device(
+        jnp.asarray(data), jnp.asarray(idx[r0:]), chosen,
+        placeholder_rows=r0, fetch=False,
+    )
+    np.testing.assert_array_equal(
+        knn_ops.assemble_null_ratio_rows(parts, n), dev_g
+    )

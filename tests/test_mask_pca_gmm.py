@@ -152,3 +152,39 @@ def test_gender_model_reference_config_parity(cohort, ref_modules):
     # 4e-6 = one grid step of the 5000-point density grid: EM from a
     # different unseeded k-means init can move the density minimum by at
     # most a knot under these well-separated cohorts.
+
+
+@pytest.mark.parametrize(
+    "seed,n_f,n_m,separated",
+    [(0, 10, 8, False), (3, 30, 30, False), (5, 12, 6, True)],
+)
+def test_gmm_matches_sklearn(seed, n_f, n_m, separated):
+    """The numpy EM reproduces sklearn's GaussianMixture fit with the
+    reference's hyper-parameters: same density on the cutoff grid, same
+    cutoff, same genders — including a fully separated cohort whose
+    inter-mode density underflows to zero."""
+    from sklearn.mixture import GaussianMixture
+
+    sim = CohortSim(binsize=1e5, genome_scale=0.02, seed=seed)
+    samples, _ = sim.cohort(n_f, n_m)
+    if separated:
+        for s in samples[:n_f]:
+            s["24"] = np.zeros_like(s["24"])
+    yf = np.array([gmm_ops.y_fraction(s) for s in samples])
+    sk = GaussianMixture(
+        n_components=2, covariance_type="full", reg_covar=1e-99,
+        max_iter=10000, tol=1e-12, random_state=0,
+    ).fit(yf.reshape(-1, 1))
+    ours = gmm_ops._Gmm1d(1e-99, 10000, 1e-12, 0).fit(yf)
+    np.testing.assert_allclose(ours.means_, sk.means_.ravel(), rtol=1e-12)
+    np.testing.assert_allclose(
+        np.exp(ours.score_samples(gmm_ops.GRID)),
+        np.exp(sk.score_samples(gmm_ops.GRID.reshape(-1, 1))),
+        rtol=1e-9, atol=1e-300,
+    )
+    genders, cutoff, _ = gmm_ops.train_gender_model(samples)
+    dens = np.exp(sk.score_samples(gmm_ops.GRID.reshape(-1, 1)))
+    minima = gmm_ops._strict_local_minima(dens)
+    if len(minima):
+        assert cutoff == float(gmm_ops.GRID[minima[0]])
+    assert genders == ["F"] * n_f + ["M"] * n_m

@@ -231,7 +231,7 @@ def test_sharded_knn_default_config_bit_equal_with_ties(setup):
     """The GSPMD path's DEFAULT merge must be bit-equal to the
     single-device search on engineered equal-distance ties — and that
     default must not depend on the backend, so the configuration the
-    multichip dryrun certifies is the one any hardware (TPU included)
+    multichip dryrun certifies is the one any hardware (GPUs included)
     would execute (round-4 judge weak #3).  "partial" remains available
     but only by explicit opt-in."""
     import inspect

@@ -1,15 +1,15 @@
-"""wisecondorx_tpu — a TPU-native shallow-WGS copy-number-aberration engine.
+"""wisecondorx_tpu — a JAX shallow-WGS copy-number-aberration engine.
 
 A from-scratch rebuild of the capabilities of WisecondorX
-(CenterForMedicalGeneticsGhent/WisecondorX, reference at /root/reference):
+(CenterForMedicalGeneticsGhent/WisecondorX):
 
 * ``convert``  — BAM/CRAM -> per-chromosome binned read counts (native C++
   BGZF/BAM reader; no pysam dependency).
 * ``newref``   — N negative-control samples -> normalization reference
   (mask -> depth normalization -> PCA residual -> per-bin K-nearest-neighbour
   "within-sample reference" search -> null ratios -> GMM sex model).  The
-  O(bins^2 x samples) neighbour search runs as a tiled MXU distance kernel
-  with running top-k, shardable over a TPU mesh.
+  O(bins^2 x samples) neighbour search runs as a tiled device distance
+  kernel with running top-k, split over the devices of a host.
 * ``predict``  — test sample + reference -> per-bin log2 ratios and z-scores
   -> circular binary segmentation (JAX reimplementation of CBS, replacing the
   reference's R/DNAcopy subprocess) -> aberration calls, BED tables, plots.

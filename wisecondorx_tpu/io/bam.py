@@ -25,6 +25,7 @@ import ctypes
 import logging
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -54,31 +55,56 @@ _QC_KEYS = (
 
 def _build_library() -> Path:
     so = _NATIVE_DIR / "libwcxbam.so"
-    srcs = [_NATIVE_DIR / "bamreader.cpp", _NATIVE_DIR / "cramreader.cpp"]
+    # The same three sources native/Makefile links: the BAM and CRAM
+    # readers plus the predict-side table kernels (tablekit.cpp).
+    srcs = [
+        _NATIVE_DIR / name
+        for name in ("bamreader.cpp", "cramreader.cpp", "tablekit.cpp")
+    ]
     for src in srcs:
         if not src.exists():
             raise ConvertError(f"native source missing: {src}")
     if not so.exists() or any(
         so.stat().st_mtime < s.stat().st_mtime for s in srcs
     ):
-        logging.info("Building native BAM/CRAM reader ...")
+        logging.info("Building native library ...")
+        # Build under a per-process name and rename into place, so
+        # concurrent first uses never load a half-written library.
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         subprocess.check_call(
             [
                 os.environ.get("CXX", "g++"),
                 "-O3", "-std=c++17", "-fPIC", "-shared", "-Wall",
-                "-o", str(so), *map(str, srcs),
-                # -l: form — the image ships libbz2.so.1.0 without the
-                # dev symlink; the three codecs have stable ABIs.
-                "-lz", "-l:libbz2.so.1.0", "-llzma",
+                "-o", str(tmp), *map(str, srcs),
+                # -l: form for the codecs whose dev symlinks hosts often
+                # lack; their sonames are stable ABIs.
+                "-lz", "-l:libbz2.so.1.0", "-l:liblzma.so.5",
             ]
         )
+        os.replace(tmp, so)
     return so
 
 
+_LIB_LOCK = threading.Lock()
+#: A failed build is not retried in the same process (callers with a numpy
+#: fallback ask once per table chunk).
+_LIB_ERROR: Exception | None = None
+
+
 def _load_library():
-    global _LIB
-    if _LIB is not None:
+    global _LIB, _LIB_ERROR
+    with _LIB_LOCK:
+        if _LIB is None and _LIB_ERROR is None:
+            try:
+                _LIB = _open_library()
+            except (OSError, subprocess.CalledProcessError, ConvertError) as e:
+                _LIB_ERROR = e
+        if _LIB_ERROR is not None:
+            raise _LIB_ERROR
         return _LIB
+
+
+def _open_library():
     override = os.environ.get("WCX_TPU_NATIVE_LIB")
     so = Path(override) if override else _build_library()
     lib = ctypes.CDLL(str(so))
@@ -110,7 +136,6 @@ def _load_library():
             ctypes.POINTER(ctypes.c_int64),
         ]
         getattr(lib, prefix + "_close").argtypes = [ctypes.c_void_p]
-    _LIB = lib
     return lib
 
 

@@ -49,7 +49,7 @@ def _generate_bins_bed(outid, bins):
     def cells(arr):
         # float64 values format fastest as Python floats (repr == the
         # old str(numpy scalar), shortest round-trip).  Other dtypes
-        # (f32 on the TPU path) keep their numpy scalars + str() so the
+        # (f32 on the device path) keep their numpy scalars + str() so the
         # printed text stays the shortest representation OF THAT dtype —
         # .tolist() would widen f32 to double and print 17-digit
         # strings.

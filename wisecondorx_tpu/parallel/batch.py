@@ -26,6 +26,11 @@ from wisecondorx_tpu.models.predictor import (
 from wisecondorx_tpu.ops import normalize as norm_ops
 from wisecondorx_tpu.ops import pca as pca_ops
 
+#: Samples per device per normalization dispatch.  Solo ``predict`` runs
+#: its sample through the same block shape, so its outputs are
+#: byte-identical to the sample's outputs on a plate.
+DEFAULT_CHUNK = 8
+
 
 @functools.partial(jax.jit, static_argnames=("ct", "rounds"))
 def _batched_kernel(
@@ -41,8 +46,8 @@ def _batched_kernel(
 
 
 def _run_pass_batched(
-    samples, ref_pass, gender, optimal_cutoff, mesh=None, chunk=8,
-    tables=None, a_pass=None,
+    samples, ref_pass, gender, optimal_cutoff, mesh=None,
+    chunk=DEFAULT_CHUNK, tables=None, a_pass=None,
 ):
     """Run one normalization pass for a batch of prepared samples.
 
@@ -79,24 +84,17 @@ def _run_pass_batched(
         gi = jax.device_put(gi, repl)
 
     n_dev = mesh.devices.size if mesh is not None else 1
-    chunk = max(chunk, n_dev)
+    # Every dispatch holds ``chunk`` samples per device (tail blocks are
+    # padded; padded rows' outputs are discarded via n_real): device
+    # reductions can round differently for another per-device shape, and
+    # a sample's outputs must not depend on the plate, the device count
+    # or the process count.
+    chunk = chunk * n_dev
 
     out = []
     for s0 in range(0, len(samples), chunk):
         block = test_mat[s0 : s0 + chunk]
-        # Single device: pad every block to the full chunk — one
-        # compiled program shape per (chunk, ct) instead of a fresh
-        # multi-second compile for each partial tail/group size (padded
-        # rows' outputs are discarded via n_real).  Under a mesh, pad
-        # only to a device multiple: XLA's per-device lane vectorization
-        # makes row results depend on the per-device row count at the
-        # last ulp, and the multi-host byte-equality contract (sharded
-        # == solo outputs) requires identical per-device shapes.
-        pad = (
-            chunk - len(block)
-            if mesh is None
-            else -len(block) % n_dev
-        )
+        pad = chunk - len(block)
         if pad:
             block = np.concatenate([block, block[-1:].repeat(pad, axis=0)])
         tm = jnp.asarray(block)
@@ -126,7 +124,7 @@ def predict_batch(
     ref_meta,
     cfg: PredictConfig = PredictConfig(),
     mesh=None,
-    chunk: int = 8,
+    chunk: int = DEFAULT_CHUNK,
     skip_errors: bool = False,
 ) -> list[BinResults]:
     """Predict a batch of samples data-parallel.

@@ -1,19 +1,19 @@
 """Device-mesh helpers.
 
 The reference's only parallelism is a thread pool over contiguous bin
-ranges (reference newref_control.py:90-109, SURVEY.md 2.13).  On TPU the
-same two embarrassingly-parallel axes exist as sharding axes over a
+ranges (reference newref_control.py:90-109, SURVEY.md 2.13).  On devices the
+same two embarrassingly-parallel axes exist as sharding axes over a 1-D
 ``jax.sharding.Mesh``:
 
-* the **bin axis** for the reference-build KNN search (each chip owns a
+* the **bin axis** for the reference-build KNN search (each device owns a
   disjoint block of target rows; candidate data is replicated — at 15 kb
-  resolution the bins x samples matrix is ~400 MB in f32, far below HBM);
+  resolution the bins x samples matrix is ~400 MB in f32, far below device
+  memory);
 * the **sample axis** for batched prediction (pure data parallelism).
 
-Both need zero cross-chip communication in the hot loop, so XLA's GSPMD
+Both need zero cross-device communication in the hot loop, so XLA's GSPMD
 partitioner handles them from sharding annotations alone — no hand-written
-collectives required (collectives appear only in reductions like the
-optimal-cutoff statistics, where psum rides ICI).
+collectives required.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Multi-host orchestration (SURVEY.md section 7 step 6).
 
 The reference is a single-process tool; its two embarrassingly parallel
-axes map onto a multi-host TPU deployment as:
+axes map onto a multi-host deployment as:
 
 * **sample axis over DCN** — ``convert`` and ``predict-batch`` shard the
   input *files* across hosts (each host reads its own BAM/CRAMs and

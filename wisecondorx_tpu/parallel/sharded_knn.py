@@ -7,9 +7,8 @@ fan-out over contiguous bin ranges, newref_control.py:90-109):
 
 * :func:`knn_search_multidevice` — explicit placement: the target-row
   range splits into contiguous per-device parts, and one host thread per
-  device drives the full single-device search (the fused Pallas kernel on
-  TPU) with that device as its default.  This is the production path used
-  by ``newref``.
+  device drives the full single-device search with that device as its
+  default.  This is the production path used by ``newref``.
 * :func:`knn_search_sharded` — GSPMD: the row axis is sharded over a
   ``Mesh`` and XLA partitions the jitted XLA kernel from the sharding
   annotations alone.  Used by the mesh-jit dry run.
@@ -24,7 +23,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from wisecondorx_tpu.ops.knn import _knn_kernel, _pad_cols, knn_search
+from wisecondorx_tpu.ops.knn import _knn_kernel, _prep_candidates, knn_search
 
 
 def knn_search_multidevice(
@@ -35,7 +34,7 @@ def knn_search_multidevice(
     ref_size: int = 300,
     row_range: tuple[int, int] | None = None,
     devices=None,
-    merge_method: str | None = None,
+    merge_method: str = "sort",
     **kw,
 ):
     """Row-partitioned KNN across all local devices.
@@ -105,8 +104,8 @@ def knn_search_sharded(
 
     This is the mesh-jit path used by the multichip dry run; production
     ``newref`` uses :func:`knn_search_multidevice`, which routes each
-    row part through the full single-device search (the fused Pallas
-    kernel on TPU, with its f32 centering and exactness certificate).
+    row part through the full single-device search (with its f32
+    centring).
 
     The merge defaults to "sort" (stable ``lax.top_k``) on EVERY
     backend, so the configuration the dry run certifies is the one any
@@ -114,15 +113,17 @@ def knn_search_sharded(
     including engineered equal-distance ties at the k boundary.  The
     faster-compiling "partial" merge (exact value set, unspecified tie
     order) is opt-in via ``merge_method="partial"`` — never a silent
-    hardware-dependent default (round-4 judge weak #3).
+    hardware-dependent default.
     """
     n = data.shape[0]
     r0, r1 = row_range if row_range is not None else (0, n)
     n_rows = r1 - r0
     n_dev = mesh.devices.size
 
-    data_p = _pad_cols(np.asarray(data), col_tile)
-    col_chr = np.full(data_p.shape[0], -2, dtype=np.int32)
+    n_pad = -(-n // col_tile) * col_tile
+    work, sentinel, unscale = _prep_candidates(jnp.asarray(data), n_pad=n_pad)
+    data_p = np.asarray(work)
+    col_chr = np.full(n_pad, -2, dtype=np.int32)
     col_chr[:n] = chr_of_bin
 
     # Pad target rows to a device multiple; padding rows use chr -2 (no
@@ -154,8 +155,11 @@ def knn_search_sharded(
         starts_d,
         sizes_d,
         jnp.int32(n),
+        jax.device_put(sentinel, repl),
         ref_size=ref_size,
         col_tile=col_tile,
         merge_method=merge_method or "sort",
     )
-    return np.asarray(idx)[:n_rows], np.asarray(dist)[:n_rows]
+    idx = np.asarray(idx)[:n_rows]
+    dist = np.asarray(dist)[:n_rows]
+    return idx, np.where(idx >= 0, dist * np.asarray(unscale), dist)

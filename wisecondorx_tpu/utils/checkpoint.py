@@ -4,7 +4,7 @@ The reference's staged temp files (``_prep.npz``, ``_part_<n>.npz``,
 ``.tmp.{A,F,M}.npz`` — reference newref_control.py:56-58,93-106,159-174)
 double as resumable checkpoints: a crashed ``newref`` can be re-run and
 picks up after the last completed stage.  This module provides the same
-property for the in-memory TPU pipeline:
+property for the in-memory device pipeline:
 
 * per pass: the post-PCA state (corrected matrix, components, mean, and
   the total-mask snapshot — the PCA-distance filter mutates the shared
